@@ -25,11 +25,12 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # denormals, and the EM stop reads the log-likelihood those produce
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("kmeans_assign", "gmm_estep")
+SOURCES = ("kmeans_assign", "gmm_estep", "flash_attention")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C signature of each library's entry points (restype, argtypes)
 SIGNATURES = {
     "kmeans_assign": {
@@ -39,6 +40,10 @@ SIGNATURES = {
     "gmm_estep": {
         "gmm_estep_launch": (_I, [_P, _L, _P, _L, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _P]),
+    },
+    "flash_attention": {
+        "flash_attention_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                        _I, _I, _I, _F, _I, _P]),
     },
 }
 
@@ -116,7 +121,7 @@ def check(status: int, what: str) -> None:
     if status == 1:
         raise RuntimeError(f"{what}: CUDA error 1 (cudaErrorInvalidValue): "
                            "a shape the kernel does not take, e.g. K*D "
-                           "beyond its shared memory")
+                           "beyond its shared memory or a head_dim > 256")
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status} "
                            "(cudaGetLastError after the launch)")

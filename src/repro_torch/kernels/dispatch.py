@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-LAUNCHES: dict[str, int] = {"kmeans_assign": 0, "gmm_estep": 0}
+LAUNCHES: dict[str, int] = {"kmeans_assign": 0, "gmm_estep": 0,
+                            "flash_attention": 0}
 
 
 def resolve_device(device=None) -> torch.device:

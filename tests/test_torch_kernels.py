@@ -18,6 +18,7 @@ from repro.kernels import layout as jlayout
 from repro.kernels.gmm_estep import ops as jg
 from repro.kernels.kmeans_assign import ops as jk
 from repro_torch.kernels import build, dispatch, layout
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gmm_estep import gmm_estep, gmm_estep_chunked
 from repro_torch.kernels.kmeans_assign import (kmeans_assign,
                                                kmeans_assign_chunked)
@@ -204,8 +205,10 @@ def test_kernel_sources_export_the_bound_entry_points():
             m = re.search(rf"\b{fn}\(([^)]*)\)", src)
             assert m, fn
             assert len(m.group(1).split(",")) == len(argtypes), fn
-        # the tile constant the wrapper sizes the partials by
-        assert f'extern "C" const int {name}_tile_rows' in src
+        # the tile constant the wrapper sizes the partials by (the
+        # clustering kernels; attention writes no partials)
+        if name != "flash_attention":
+            assert f'extern "C" const int {name}_tile_rows' in src
         # the note every kernel carries: what it replaces and its bound
         assert f"src/repro/kernels/{name}/kernel.py" in src
         assert "bounds it on this card" in src
@@ -238,4 +241,7 @@ def test_cpu_ops_launch_nothing():
     kmeans_assign(torch.zeros(8, 2), torch.zeros(2, 2))
     gmm_estep(torch.zeros(8, 2), torch.zeros(2, 2), torch.ones(2, 2),
               torch.zeros(2))
-    assert dispatch.LAUNCHES == {"kmeans_assign": 0, "gmm_estep": 0}
+    flash_attention(torch.zeros(1, 2, 4, 8), torch.zeros(1, 1, 4, 8),
+                    torch.zeros(1, 1, 4, 8))
+    assert dispatch.LAUNCHES == {"kmeans_assign": 0, "gmm_estep": 0,
+                                 "flash_attention": 0}
